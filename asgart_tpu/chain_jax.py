@@ -3,7 +3,7 @@
 The reference automaton (``src/automaton.rs:57-204``) is sequential over
 probes, but each probe step is internally data-parallel: every match is
 classified against the *same* pre-step arm snapshot (the reference uses
-``par_iter`` for exactly this reason, automaton.rs:122-134). The TPU
+``par_iter`` for exactly this reason, automaton.rs:122-134). The device
 formulation keeps the sequential probe scan (``lax.scan``) and vectorizes
 the per-step work:
 
@@ -20,13 +20,13 @@ The reference's dynamic arm vector is bounded in practice by its 200-arm
 prune; A=256 reproduces it except in adversarial inputs (the native host
 engine stays the byte-exact reference path).
 
-STATUS (frozen experiment, round 5): this engine is correct (pairwise
-fuzz + overflow pins vs the three host engines) but NOT on the default
-path, and measurement says it should stay that way: production chains
+STATUS (frozen experiment): this engine is correct (pairwise fuzz +
+overflow pins vs the three host engines) but NOT on the default path:
+production chains
 from device-COMPACTED events (a few MB per chunk), so host chaining is
 microseconds-per-family and overlaps the next window's device phase in
 the sharded pipeline — while the lax.scan chain pays a sequential
-O(probes) device scan that cannot use the MXU and caps live arms at
+O(probes) device scan that cannot use the matrix units and caps live arms at
 A=256 (semantically weaker under adversarial arm pressure). Promoting
 it would trade an exact, overlap-hidden host stage for a slower,
 capacity-capped device one. Kept as an engine for mesh experiments
@@ -318,11 +318,10 @@ def chain_device(
 # replayed with a bounded per-step loop, preserving intermediate
 # prune/emission timing bit-for-bit.
 #
-# Measured (v5e, 32 Mbp -RC): exact output, but ~80x slower than the
-# native host event chain (82 s vs ~1 s scan) — the automaton is
-# irreducibly sequential within a burst and lane counts are small, so
-# scan-step overhead dominates while the host chain finishes the same
-# events in microseconds per thousand. This is why the HOST event chain
+# Exact output, but the automaton is irreducibly sequential within a
+# burst and lane counts are small, so scan-step overhead dominates while
+# the host chain finishes the same events in microseconds per thousand
+# (its cost on a GPU is not measured yet). This is why the HOST event chain
 # is the production default and the device chain is the opt-in
 # (ASGART_DEVICE_CHAIN=1): Amdahl is on the host's side once the device
 # has compacted 12.8M probes into a few thousand events.

@@ -1,7 +1,7 @@
 """``asgart`` CLI: find segmental duplications.
 
 Flag-compatible with the reference binary (``src/bin/asgart.rs:564-631``),
-plus TPU-native extras (``--engine``).
+plus device-engine extras (``--engine``, ``--shards``, ``--hosts``).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import logging
 import pathlib
 import sys
 
+from ..compile_cache import configure_compile_cache
 from ..exporters import JSONExporter
 from ..pipeline import search_duplications
 from ..structs import RunSettings
@@ -21,7 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="asgart",
         description="A Segmental duplications Gathering and Refinement Tool "
-                    "(TPU-native)")
+                    "(JAX device engine)")
     p.add_argument("strands", nargs="*", help="The files to process")
     p.add_argument("-v", "--verbose", action="count", default=0,
                    help="Increase verbosity (-v info, -vv debug, -vvv trace)")
@@ -53,7 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(accepted for compatibility; unused, like the "
                         "reference)")
     p.add_argument("--engine", choices=["host", "tpu"], default="host",
-                   help="Seed-lookup engine (host numpy or TPU)")
+                   help="Search engine: 'host' (native CPU) or 'tpu' "
+                        "(the JAX device engine, on whatever accelerator "
+                        "JAX finds)")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
                    help="Journal completed chunks to FILE and resume from "
                         "it after a crash/preemption")
@@ -108,6 +111,7 @@ def _main(argv=None) -> int:
         trim=tuple(args.trim) if args.trim else None,
     )
 
+    configure_compile_cache()
     prof: dict = {}
     if args.hosts > 1:
         from ..multihost import search_duplications_multihost

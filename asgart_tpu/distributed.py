@@ -5,8 +5,9 @@ window engine across PROCESS boundaries.
 processes (the reference's manual trim workflow, asgart.rs:433-463,
 automated). This module exercises the other multi-host axis — ONE
 device mesh spanning several controllers, the deployment shape of a
-real TPU pod slice: each process initializes `jax.distributed`, owns a
-slice of the global mesh, feeds its own shards of the rank-sharded
+multi-host accelerator cluster: each process initializes
+`jax.distributed`, owns a slice of the global mesh, feeds its own
+shards of the rank-sharded
 window index (`ShardedWindowEngine`), and the stage-1/stage-2 psum
 collectives run across the process boundary. Every process computes
 the identical replicated outputs, so each can chain + export
@@ -31,7 +32,10 @@ def _worker(pid: int, nprocs: int, port: int, fa: str, out: str,
             ws: int, we: int, reverse: bool, complement: bool) -> None:
     import jax
 
+    from asgart_tpu.compile_cache import configure_compile_cache
+
     jax.config.update("jax_platforms", "cpu")
+    configure_compile_cache()
     jax.distributed.initialize(
         coordinator_address=f"127.0.0.1:{port}",
         num_processes=nprocs, process_id=pid)
@@ -88,14 +92,6 @@ def dryrun_two_process(n_local: int = 4, timeout: float = 900.0) -> str:
 
         env = dict(os.environ)
         env["JAX_PLATFORMS"] = "cpu"
-        try:  # share the parent's persistent compile cache
-            import jax
-
-            cd = jax.config.jax_compilation_cache_dir
-            if cd and "JAX_COMPILATION_CACHE_DIR" not in env:
-                env["JAX_COMPILATION_CACHE_DIR"] = cd
-        except Exception:
-            pass
         flags = env.get("XLA_FLAGS", "")
         # strip any inherited device-count flag, then pin n_local
         flags = " ".join(f for f in flags.split()

@@ -173,9 +173,8 @@ def find_chunks_to_process(strand: np.ndarray) -> list[tuple[int, int]]:
 
 
 # one-entry parse cache for warm-service rescans: a rescan of the same
-# files re-paid the full FASTA parse (measured 12 s of a 17.8 s 512 Mbp
-# rescan wall, r5) although the parse is pure in (file contents,
-# skip_masked). Guarded by per-file (size, mtime_ns) fingerprints;
+# files would re-pay the full FASTA parse although it is pure in (file
+# contents, skip_masked). Guarded by per-file (size, mtime_ns) fingerprints;
 # ASGART_PREPARE_CACHE=0 disables. The cached strand/map/chunks are
 # returned as-is — callers treat them read-only (windows of a sharded
 # run already share one parse the same way).

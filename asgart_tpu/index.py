@@ -2,7 +2,7 @@
 
 The reference indexes the genome with a suffix array plus a dense 8-mer →
 SA-interval cache, and answers probe queries by byte-wise binary search
-(``src/searcher.rs``, ``src/divsufsort.rs``). The TPU-native redesign keeps
+(``src/searcher.rs``, ``src/divsufsort.rs``). This data-parallel redesign keeps
 a true suffix array (for reference-identical match *ordering*) but replaces
 byte-compare binary search with integer compares over a packed view:
 
@@ -11,7 +11,7 @@ byte-compare binary search with integer compares over a packed view:
     order == suffix order restricted to k prefixes),
   * ``sa_kmers[r] = pack(text[sa[r]:sa[r]+k])`` is therefore sorted, and a
     probe lookup is ``searchsorted`` — a data-parallel gather-only loop
-    that runs equally well in numpy (host engine) and on TPU,
+    that runs equally well in numpy (host engine) and on a device,
   * matches for a probe are ``sa[lo:hi]`` — in the reference's SA order,
     which the chaining automaton is sensitive to.
 
@@ -208,14 +208,14 @@ for _a, _b in zip(b"ACGTN", b"TGCAN"):
 class PositionIndex:
     """Doubled-text index with O(1) probe-range lookup tables.
 
-    TPU-native redesign of the probe search: the text indexed is
+    Data-parallel redesign of the probe search: the text indexed is
     ``strand.data ++ T(S)`` where ``S`` is the genome without the ``$``
     sentinel and ``T`` is the run's needle transform (reverse, complement,
     or reverse-complement; empty for direct runs). Every probe k-mer of
     the (transformed) needle is then literally a k-mer of the indexed
     text at a computable position, so a probe lookup is one gather into
     per-position equal-range tables — no binary search anywhere on the
-    hot path (host or TPU).
+    hot path (host or device).
 
     Match-order exactness: suffixes of the first half compare identically
     with or without the appended half because the interior ``$`` is a

@@ -4,15 +4,18 @@ The reference's documented scale-out is manual: run ``asgart --trim a b``
 per memory-bounded window, then merge the partial JSONs with
 ``asgart-slice`` (``/root/reference/src/structs.rs:114-141`` +
 README v2.0 notes). ``--shards N`` automates that in-process; this module
-automates it ACROSS processes — the multi-host (DCN) execution form.
+automates it ACROSS processes — the multi-host execution form.
 Windows need **zero cross-process communication** (families never span
 windows, per reference trim semantics), so the "collective" is just the
 window-ordered concatenation of partial results, performed once at the
-end by the driver. On a pod deployment each worker command runs on its
-own host against its own chips (the driver's subprocess list IS the
+end by the driver. On a cluster each worker command runs on its own
+host against its own devices (the driver's subprocess list IS the
 per-host command list — dispatch it via your scheduler of choice);
-in-image it runs the workers as local subprocesses, which exercises the
-identical code path end to end.
+locally it runs the workers as subprocesses, which exercises the
+identical code path end to end. Local device workers get one GPU each
+(``CUDA_VISIBLE_DEVICES``), at most one worker per visible GPU at a
+time: a JAX process reserves most of its card's memory at start-up, so
+two on one card would fail. The parent process never imports JAX.
 
 Output is byte-equal to the in-process ``--shards N`` run and to the
 sequential trim+merge workflow (pinned by tests/test_multihost.py).
@@ -72,6 +75,35 @@ def window_argv(strands_files: list[str], settings: RunSettings,
     return argv
 
 
+def visible_gpus(env: dict) -> list[str]:
+    """The GPUs a worker may be given: ``CUDA_VISIBLE_DEVICES`` when the
+    environment sets it, else the cards ``nvidia-smi`` lists (none on a
+    machine without it). Never imports JAX."""
+    vis = env.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return [c.strip() for c in vis.split(",") if c.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    if out.returncode != 0:
+        return []
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def worker_cards(engine: str, env: dict) -> Optional[list]:
+    """Cards to hand out to device workers, one per concurrent worker,
+    or None when workers need no card (host engine, or the CPU platform
+    pinned by ``JAX_PLATFORMS``). Where no GPU can be listed, device
+    workers run one at a time on whatever device JAX finds
+    (``[None]``)."""
+    if engine != "tpu" or env.get("JAX_PLATFORMS", "").strip() == "cpu":
+        return None
+    return visible_gpus(env) or [None]
+
+
 def merge_partials(part_files: list[str],
                    settings: RunSettings) -> RunResult:
     """Window-ordered merge of partial results — the reference's
@@ -94,11 +126,12 @@ def search_duplications_multihost(
 ) -> RunResult:
     """Run ``shards`` trim windows as worker PROCESSES, at most
     ``hosts`` concurrently (one per host in a real deployment), and
-    merge their partial JSONs.
+    merge their partial JSONs. Device workers (``engine="tpu"`` off
+    the CPU platform) also run at most one per visible GPU, each pinned
+    to its own card.
 
     ``env`` entries overlay ``os.environ`` for the workers (tests pin
-    ``JAX_PLATFORMS=cpu``; a pod launcher would set per-host visible
-    devices instead)."""
+    ``JAX_PLATFORMS=cpu``)."""
     if settings.trim is not None:
         raise ValueError("multi-host runs cannot be combined with --trim")
     from .fasta import prepare_data
@@ -128,6 +161,13 @@ def search_duplications_multihost(
         wenv["PYTHONPATH"] = (pkg_root + os.pathsep + prev) if prev \
             else pkg_root
 
+        # device workers: one card each, never two on one card
+        cards = worker_cards(engine, wenv)
+        slots = max(1, hosts) if cards is None \
+            else max(1, min(hosts, len(cards)))
+        free_cards = list(cards or [])
+        card_of: dict = {}
+
         procs: list = [None] * len(windows)
         pending = list(range(len(windows)))
         running: list[int] = []
@@ -140,6 +180,8 @@ def search_duplications_multihost(
                     p.wait()
                 if p.poll() is not None:
                     running.remove(i)
+                    if i in card_of:
+                        free_cards.append(card_of.pop(i))
                     if p.returncode != 0:
                         err = p.stderr.read().decode(errors="replace")
                         failures.append(
@@ -150,15 +192,20 @@ def search_duplications_multihost(
         import time as _time
 
         while pending or running:
-            while pending and len(running) < max(1, hosts) \
-                    and not failures:
+            while pending and len(running) < slots and not failures:
                 i = pending.pop(0)
                 argv = window_argv(strands_files, settings, windows[i],
                                    parts[i], engine=engine)
-                log.info("multihost: launching window %s (%d/%d)",
-                         windows[i], i + 1, len(windows))
+                penv = wenv
+                if cards is not None:
+                    card_of[i] = free_cards.pop(0)
+                    if card_of[i] is not None:
+                        penv = dict(wenv, CUDA_VISIBLE_DEVICES=card_of[i])
+                log.info("multihost: launching window %s (%d/%d) GPU %s",
+                         windows[i], i + 1, len(windows),
+                         card_of.get(i))
                 procs[i] = subprocess.Popen(
-                    argv, env=wenv, stdout=subprocess.DEVNULL,
+                    argv, env=penv, stdout=subprocess.DEVNULL,
                     stderr=subprocess.PIPE)
                 running.append(i)
             if failures:

@@ -326,7 +326,7 @@ def chain_events(
     kept match, CSR matches already filtered, plus intervening aging-step
     counts). Exactly equivalent to :func:`chain` on the full probe stream;
     the device engine downloads only events, so this is the host-side
-    chaining endpoint of the TPU scan path."""
+    chaining endpoint of the device scan path."""
     lib = _load()
     probe_is = _as_i64(probe_is)
     z_before = _as_i64(z_before)

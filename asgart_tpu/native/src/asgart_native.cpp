@@ -355,7 +355,7 @@ int asgart_chain(const ChainParams* prm, const int64_t* sa,
 // Event-stream variant of the automaton: consumes only probes that have
 // at least one kept match ("events"), with the number of intervening
 // aging steps (valid zero-match probes) precomputed. The device engine
-// compacts the probe stream on the TPU and downloads just the events;
+// compacts the probe stream on the device and downloads just the events;
 // this entry replays the exact per-step semantics of `asgart_chain`
 // (aging, the 200-arm prune, simultaneous-death families) by simulating
 // the skipped steps — bounded by the arm-death horizon, after which a
@@ -1143,7 +1143,7 @@ int asgart_pack_kmers(const uint8_t* codes, int64_t n, int64_t k,
 // Build position→equal-range tables: for every text position p,
 // pos_lo[p]..pos_hi[p] is the suffix-array interval of positions whose
 // k-mer equals p's. This turns every probe lookup into one gather —
-// the TPU-native replacement of the reference's per-probe binary search
+// the data-parallel replacement of the reference's per-probe binary search
 // (searcher.rs:145-171).
 // elem_size selects int64 (8) or int32 (4) output tables; int32 halves
 // the latency-bound scatter traffic and feeds the device path directly.

@@ -1,4 +1,4 @@
-"""Adversarial-genome equivalence fuzz: host vs tpu on repeat
+"""Adversarial-genome equivalence fuzz: host vs device on repeat
 structures that stress equal-range explosions, cardinality skips and
 the sliced dispatch — homopolymers, dinucleotide satellites, tandem
 arrays, nested duplications, identical halves, boundary-straddlers.

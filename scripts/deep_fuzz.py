@@ -1,4 +1,4 @@
-"""One-off deep equivalence fuzz: host vs tpu (mesh) vs --shards over
+"""One-off deep equivalence fuzz: host vs device (mesh) vs --shards over
 randomized genomes/settings on the virtual CPU mesh. Not part of CI
 (minutes of runtime); run before a release."""
 import io
@@ -71,14 +71,14 @@ def one_trial(t, d):
         return buf.getvalue()
 
     host = js(search_duplications([fa], RunSettings(**kw)))
-    tpu = js(search_duplications([fa], RunSettings(**kw), engine="tpu"))
+    device = js(search_duplications([fa], RunSettings(**kw), engine="tpu"))
     if k <= 21:
-        assert tpu == host, f"trial {t}: tpu != host (k={k}, kw={kw})"
+        assert device == host, f"trial {t}: device != host (k={k}, kw={kw})"
     if k <= 20:
         # force the big-genome one-window merge-join strategy for
         # doubled runs (the budget sits between the doubled-table and
         # window-engine footprints; direct-run tables always fit
-        # whenever the window would, so direct trials just re-run tpu)
+        # whenever the window would, so direct trials just re-run device)
         os.environ["ASGART_HBM_BYTES"] = str((n + 1) * 50)
         try:
             win = js(search_duplications([fa], RunSettings(**kw),

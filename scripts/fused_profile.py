@@ -1,6 +1,6 @@
-"""Real-chip fresh-genome profile of the FUSED engine vs the classic
+"""Device fresh-genome profile of the FUSED engine vs the classic
 table engine: synthesizes a bench-style genome, runs the full
-`engine=tpu` pipeline twice per engine (pass 1 warms compiles; pass 2
+`engine=device` pipeline twice per engine (pass 1 warms compiles; pass 2
 on the COMPLEMENT genome = the fresh-genome regime: same chunk/spec
 structure, different content, so every compile is warm but every build
 runs), and prints per-pass index/scan timings.
@@ -16,11 +16,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+from asgart_tpu.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 MBP = float(sys.argv[1]) if len(sys.argv) > 1 else 128.0
 WHICH = sys.argv[2] if len(sys.argv) > 2 else "both"

@@ -1,4 +1,4 @@
-"""On-chip probe: doubling round schedule for the fused build.
+"""On-device probe: doubling round schedule for the fused build.
 
 Compares the current schedule (4 rounds/call at cap <= 2^22) against a
 2-round first call (earlier cap shrink costs one extra sync but runs
@@ -13,11 +13,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+from asgart_tpu.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 from bench import synthetic_genome, complement_genome  # noqa: E402
 import asgart_tpu.device_index as di  # noqa: E402
@@ -42,7 +40,7 @@ def build(data, rpc):
     t0 = time.time()
     idx = di.FusedIndex.build(data, 20, specs=specs, reverse=True,
                               complement=True, rounds_per_call=rpc)
-    np.asarray(idx.sa[:1])
+    jax.block_until_ready(idx.sa)
     return time.time() - t0, idx
 
 

@@ -1,11 +1,11 @@
-"""Real-chip scale demo: end-to-end `engine=tpu` run at sizes beyond the
-single-HBM table engine, exercising the scale ladder's `--shards` rung
+"""Device scale demo: end-to-end `engine=device` run at sizes beyond the
+single-device table engine, exercising the scale ladder's `--shards` rung
 (windowed merge-join device indexes, reference trim semantics).
 
 Usage: python scripts/scale_demo.py [MBP] [SHARDS]
        python scripts/scale_demo.py build [MBP]   # index-build laps only
 Env:   SCALE_HOST=1 also runs the host engine and compares JSON bytes.
-       SCALE_RESCAN=1 runs a second (warm-service) tpu pass.
+       SCALE_RESCAN=1 runs a second (warm-service) device pass.
 The `build` mode (with ASGART_DEVICE_PROFILE=1) profiles the on-device
 whole-genome index build at bench scale: 3 passes, per-stage laps.
 """
@@ -18,11 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+from asgart_tpu.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 if len(sys.argv) > 1 and sys.argv[1] == "build":
     # index-build profiling mode (ex scripts/didx_profile.py)
@@ -37,13 +35,13 @@ if len(sys.argv) > 1 and sys.argv[1] == "build":
     data = np.concatenate([g, np.frombuffer(b"$", dtype=np.uint8)])
     print(f"genome {mbp:.0f} Mbp: {time.time()-t0:.1f}s", flush=True)
     codes = DeviceIndex.upload_codes(data)
-    np.asarray(codes[:1])  # force
+    jax.block_until_ready(codes)
     print("uploaded", flush=True)
     for p in range(3):
         t0 = time.time()
         idx = DeviceIndex.build(data, 20, reverse=True, complement=True,
                                 codes_device=codes)
-        np.asarray(idx.sa[:1])
+        jax.block_until_ready(idx.sa)
         print(f"pass {p}: {time.time()-t0:.2f}s", flush=True)
         del idx
     sys.exit(0)

@@ -1,4 +1,4 @@
-"""TPU production engine (device index + scan + event chain) vs the host
+"""Device engine (device index + scan + event chain) vs the host
 engine: full-pipeline output equality on the CPU backend."""
 
 import json
@@ -16,22 +16,22 @@ def run_both(tmp_path, text_body: bytes, settings_kw: dict):
     write_fasta(fa, [("chr1", text_body)])
     host = search_duplications([str(fa)], RunSettings(**settings_kw),
                                engine="host")
-    tpu = search_duplications([str(fa)], RunSettings(**settings_kw),
-                              engine="tpu")
-    return host, tpu
+    device = search_duplications([str(fa)], RunSettings(**settings_kw),
+                                 engine="tpu")
+    return host, device
 
 
-def assert_results_equal(host, tpu):
+def assert_results_equal(host, device):
     h = [[vars(sd) for sd in fam] for fam in host.families]
-    t = [[vars(sd) for sd in fam] for fam in tpu.families]
+    t = [[vars(sd) for sd in fam] for fam in device.families]
     assert json.dumps(t, sort_keys=True) == json.dumps(h, sort_keys=True)
 
 
 def test_device_engine_direct(tmp_path):
     rng = np.random.default_rng(0)
     text = plant_duplication(rng, 30000, 2000, 5000, 20000, noise=0.01)
-    host, tpu = run_both(tmp_path, text, {})
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, text, {})
+    assert_results_equal(host, device)
     assert host.families, "nothing found"
 
 
@@ -39,9 +39,9 @@ def test_device_engine_rc(tmp_path):
     rng = np.random.default_rng(1)
     text = plant_duplication(rng, 24000, 1500, 3000, 15000,
                              transform=revcomp)
-    host, tpu = run_both(tmp_path, text,
-                         dict(reverse=True, complement=True))
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, text,
+                            dict(reverse=True, complement=True))
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -52,9 +52,9 @@ def test_device_engine_multi_chunk_and_ns(tmp_path):
     g[9000:11000] = bytes(g[2000:4000])
     g[20000:26000] = b"N" * 6000          # chunk split (> 5000)
     g[32000:33500] = bytes(g[27000:28500])
-    host, tpu = run_both(tmp_path, bytes(g),
-                         dict(min_duplication_length=800))
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, bytes(g),
+                            dict(min_duplication_length=800))
+    assert_results_equal(host, device)
     assert sum(len(f) for f in host.families) >= 2
 
 
@@ -73,10 +73,10 @@ def test_device_engine_repeat_heavy_cardinality(tmp_path):
             elt[int(rng.integers(0, 300))] = int(rng.integers(65, 68))
         g[p:p + 300] = bytes(elt)
     g[n - 3000:n - 1000] = bytes(g[500:2500])
-    host, tpu = run_both(
+    host, device = run_both(
         tmp_path, bytes(g),
         dict(max_cardinality=20, min_duplication_length=500))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
 
 
 @pytest.mark.soak
@@ -106,15 +106,15 @@ def test_device_engine_overflow_retry(tmp_path):
     host_fams = [f for c in chunks for f in host_se.run_chunk(c)]
 
     dev = DeviceEngine(strand, settings, mesh=False)
-    tpu_fams = []
+    device_fams = []
     for c in chunks:
         st = dev._dispatch_chunk(c, cap=256, ev_cap=8)
         assert st is not None
-        tpu_fams.extend(raw_families_to_protosds(
+        device_fams.extend(raw_families_to_protosds(
             dev._collect_chunk(st), settings, c[0], c[1]))
-    assert len(tpu_fams) >= 1
+    assert len(device_fams) >= 1
     h = [[vars(sd) for sd in fam] for fam in host_fams]
-    t = [[vars(sd) for sd in fam] for fam in tpu_fams]
+    t = [[vars(sd) for sd in fam] for fam in device_fams]
     assert json.dumps(t, sort_keys=True) == json.dumps(h, sort_keys=True)
 
 
@@ -140,8 +140,8 @@ def test_device_engine_fuzz(tmp_path, trial):
         if reverse:
             seg = revcomp(seg)
         g[dst:dst + L] = seg
-    host, tpu = run_both(tmp_path, bytes(g), kw)
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, bytes(g), kw)
+    assert_results_equal(host, device)
 
 
 def test_device_engine_json_byte_equal(tmp_path):
@@ -152,10 +152,10 @@ def test_device_engine_json_byte_equal(tmp_path):
 
     rng = np.random.default_rng(9)
     text = plant_duplication(rng, 16000, 1200, 2000, 9000)
-    host, tpu = run_both(tmp_path, text, {})
+    host, device = run_both(tmp_path, text, {})
     bh, bt = io.StringIO(), io.StringIO()
     JSONExporter().save(host, bh)
-    JSONExporter().save(tpu, bt)
+    JSONExporter().save(device, bt)
     assert bt.getvalue() == bh.getvalue()
     assert len(bh.getvalue()) > 200
 
@@ -215,12 +215,12 @@ def test_wide_probe_bounds(tmp_path):
         DeviceIndex.build(data, 31)
     # k=21 now builds on device (3-plane) — equality pinned here and in
     # test_device_engine_wide_probes
-    host, tpu = run_both(tmp_path, text, dict(probe_size=21))
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, text, dict(probe_size=21))
+    assert_results_equal(host, device)
     assert host.families
     # k=31+ routes through the host (ByteIndex) path, byte-equal
-    host31, tpu31 = run_both(tmp_path, text, dict(probe_size=31))
-    assert_results_equal(host31, tpu31)
+    host31, device31 = run_both(tmp_path, text, dict(probe_size=31))
+    assert_results_equal(host31, device31)
 
 
 def test_empty_family_postprocess_no_crash():
@@ -240,9 +240,9 @@ def test_device_chain_mode_matches_host(tmp_path, monkeypatch):
     g[9000:11500] = bytes(g[2000:4500])
     g[30000:31500] = bytes(g[21000:22500])
     # long quiet gaps between duplications -> multiple bursts
-    host, tpu = run_both(tmp_path, bytes(g),
-                         dict(min_duplication_length=900))
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, bytes(g),
+                            dict(min_duplication_length=900))
+    assert_results_equal(host, device)
     assert sum(len(f) for f in host.families) >= 2
 
 
@@ -262,10 +262,10 @@ def test_hbm_budget_fallback_to_host(tmp_path, monkeypatch, caplog):
                                engine="host")
     monkeypatch.setenv("ASGART_HBM_BYTES", "1000")
     with caplog.at_level(logging.WARNING, logger="asgart"):
-        tpu = search_duplications([str(fa)], RunSettings(**kw),
-                                  engine="tpu")
+        device = search_duplications([str(fa)], RunSettings(**kw),
+                                     engine="tpu")
     assert any("one-HBM" in r.message for r in caplog.records)
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -290,12 +290,12 @@ def test_hbm_budget_one_window_strategy(tmp_path, monkeypatch, caplog):
     # 24001*44 B — a budget between them forces the window strategy
     monkeypatch.setenv("ASGART_HBM_BYTES", "1100000")
     with caplog.at_level(logging.INFO, logger="asgart"):
-        tpu = search_duplications([str(fa)], RunSettings(**kw),
-                                  engine="tpu")
+        device = search_duplications([str(fa)], RunSettings(**kw),
+                                     engine="tpu")
     assert any("one-window" in r.message for r in caplog.records)
     bh, bt = io.StringIO(), io.StringIO()
     JSONExporter().save(host, bh)
-    JSONExporter().save(tpu, bt)
+    JSONExporter().save(device, bt)
     assert bt.getvalue() == bh.getvalue()
     assert host.families
 
@@ -318,12 +318,12 @@ def test_grouped_dispatch_many_chunks(tmp_path):
         p = 17000 + i * 20000
         g[p:p + 6000] = b"N" * 6000
     for kw in ({}, dict(reverse=True, complement=True)):
-        host, tpu = run_both(
+        host, device = run_both(
             tmp_path, bytes(g), dict(min_duplication_length=700, **kw))
-        assert_results_equal(host, tpu)
+        assert_results_equal(host, device)
         bh, bt = io.StringIO(), io.StringIO()
         JSONExporter().save(host, bh)
-        JSONExporter().save(tpu, bt)
+        JSONExporter().save(device, bt)
         assert bt.getvalue() == bh.getvalue(), kw
     assert host.families
 
@@ -362,14 +362,14 @@ def test_grouped_overflow_retry(tmp_path):
     assert all(dev._chunk_geometry(c)[0] == b_pad for c in live)
     gst = dev._dispatch_group(live, b_pad, cap=256, ev_cap=8)
     res = dev._collect_group(gst)
-    tpu_fams = []
+    device_fams = []
     for c in chunks:
-        tpu_fams.extend(raw_families_to_protosds(
+        device_fams.extend(raw_families_to_protosds(
             res.get(c, []), settings, c[0], c[1]))
     h = [[vars(sd) for sd in fam] for fam in host_fams]
-    t = [[vars(sd) for sd in fam] for fam in tpu_fams]
+    t = [[vars(sd) for sd in fam] for fam in device_fams]
     assert json.dumps(t, sort_keys=True) == json.dumps(h, sort_keys=True)
-    assert len(tpu_fams) >= 2
+    assert len(device_fams) >= 2
 
 
 @pytest.mark.soak
@@ -408,9 +408,9 @@ def test_sliced_dispatch_repeat_explosion(tmp_path, monkeypatch):
     settings = dict(min_duplication_length=500, max_cardinality=500)
     host = search_duplications([str(fa)], RunSettings(**settings),
                                engine="host")
-    tpu = search_duplications([str(fa)], RunSettings(**settings),
-                              engine="tpu")
-    assert_results_equal(host, tpu)
+    device = search_duplications([str(fa)], RunSettings(**settings),
+                                 engine="tpu")
+    assert_results_equal(host, device)
     assert any(v == "sliced" for v in de._CAP_CACHE.values()), \
         "expected the sliced dispatch path to trigger"
     assert sum(len(f) for f in host.families) >= 1
@@ -420,9 +420,9 @@ def test_sliced_dispatch_repeat_explosion(tmp_path, monkeypatch):
     settings["reverse"] = settings["complement"] = True
     host = search_duplications([str(fa)], RunSettings(**settings),
                                engine="host")
-    tpu = search_duplications([str(fa)], RunSettings(**settings),
-                              engine="tpu")
-    assert_results_equal(host, tpu)
+    device = search_duplications([str(fa)], RunSettings(**settings),
+                                 engine="tpu")
+    assert_results_equal(host, device)
     assert any(v == "sliced" for v in de._CAP_CACHE.values())
 
 
@@ -538,10 +538,10 @@ def test_device_engine_wide_probes(tmp_path, k):
         settings = RunSettings(probe_size=k, min_duplication_length=800,
                                **kw)
         host = search_duplications([str(fa)], settings, engine="host")
-        tpu = search_duplications([str(fa)], settings, engine="tpu")
+        device = search_duplications([str(fa)], settings, engine="tpu")
         bh, bt = io.StringIO(), io.StringIO()
         JSONExporter().save(host, bh)
-        JSONExporter().save(tpu, bt)
+        JSONExporter().save(device, bt)
         assert bt.getvalue() == bh.getvalue(), (k, kw)
     assert host.families
 
@@ -561,9 +561,9 @@ def test_device_engine_wide_probe_trim_routes_host(tmp_path):
     settings = RunSettings(probe_size=24, trim=(0, 39000),
                            min_duplication_length=800)
     host = search_duplications([str(fa)], settings, engine="host")
-    tpu = search_duplications([str(fa)], settings, engine="tpu")
+    device = search_duplications([str(fa)], settings, engine="tpu")
     bh, bt = io.StringIO(), io.StringIO()
     JSONExporter().save(host, bh)
-    JSONExporter().save(tpu, bt)
+    JSONExporter().save(device, bt)
     assert bt.getvalue() == bh.getvalue()
     assert host.families

@@ -213,7 +213,7 @@ def test_strand_fingerprint_sliced():
 
 
 def test_device_index_cache_pipeline_rescan(tmp_path):
-    """engine=tpu rescan of the same genome through the public pipeline:
+    """engine=device rescan of the same genome through the public pipeline:
     identical JSON with the index served from the HBM cache."""
     import io
 
@@ -400,3 +400,64 @@ def test_decimate_codes_multi_bit_equal():
         a = np.asarray(_decimate_codes_t(codes, step, L, n))
         b = np.asarray(_decimate_codes_multi(codes, step, L, n))
         assert np.array_equal(a, b), (step, n, L)
+
+
+class _StubDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"stub {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_hbm_budget_env_override(monkeypatch):
+    import asgart_tpu.device_index as di
+
+    monkeypatch.setenv("ASGART_HBM_BYTES", "2.5e9")
+    monkeypatch.setattr(di.jax, "local_devices", lambda: [_StubDevice(
+        "gpu", {"bytes_limit": 60 << 30})])
+    assert di.hbm_budget_bytes() == 2_500_000_000
+
+
+def test_hbm_budget_reads_device_limit(monkeypatch):
+    """On an accelerator the budget is the allocator's bytes_limit less
+    the stated reserve; the live free-memory figure follows it."""
+    import asgart_tpu.device_index as di
+
+    monkeypatch.delenv("ASGART_HBM_BYTES", raising=False)
+    limit = 60_000_000_000
+    monkeypatch.setattr(di.jax, "local_devices", lambda: [_StubDevice(
+        "gpu", {"bytes_limit": limit, "bytes_in_use": 4_000_000_000})])
+    budget = limit - int(limit * di.DEVICE_RESERVE_FRACTION)
+    assert di.hbm_budget_bytes() == budget
+    assert di.hbm_free_estimate() == budget - 4_000_000_000
+    # the fit predicates plan against it: a 512 Mbp fused build
+    # (~26 GB) fits this card, a 1.2 Gbp one (~61 GB) does not
+    assert di.fused_fits(512_000_001)
+    assert not di.fused_fits(1_200_000_001)
+
+
+def test_hbm_budget_requires_device_limit(monkeypatch):
+    import pytest
+
+    import asgart_tpu.device_index as di
+
+    monkeypatch.delenv("ASGART_HBM_BYTES", raising=False)
+    for stats in (None, {"bytes_in_use": 1}):
+        monkeypatch.setattr(di.jax, "local_devices",
+                            lambda s=stats: [_StubDevice("gpu", s)])
+        with pytest.raises(RuntimeError, match="bytes_limit"):
+            di.hbm_budget_bytes()
+
+
+def test_hbm_budget_cpu_tier_default(monkeypatch):
+    import asgart_tpu.device_index as di
+
+    monkeypatch.delenv("ASGART_HBM_BYTES", raising=False)
+    assert di.hbm_budget_bytes() == di.CPU_TIER_BUDGET_BYTES
+    # no allocator stats on the CPU backend: the tracked-cache
+    # accounting stands in for live free memory
+    assert di._hbm_free_bytes_local() is None
+    assert di.hbm_free_estimate() <= di.CPU_TIER_BUDGET_BYTES

@@ -1,4 +1,4 @@
-"""Windowed (``--trim``) TPU engine vs the host trim path: full-pipeline
+"""Windowed (``--trim``) device engine vs the host trim path: full-pipeline
 output equality on the CPU backend (reference trim semantics,
 asgart.rs:142-148: SA over the window only, whole genome probed)."""
 
@@ -18,14 +18,14 @@ def run_both(tmp_path, text_body: bytes, settings_kw: dict):
     write_fasta(fa, [("chr1", text_body)])
     host = search_duplications([str(fa)], RunSettings(**settings_kw),
                                engine="host")
-    tpu = search_duplications([str(fa)], RunSettings(**settings_kw),
-                              engine="tpu")
-    return host, tpu
+    device = search_duplications([str(fa)], RunSettings(**settings_kw),
+                                 engine="tpu")
+    return host, device
 
 
-def assert_results_equal(host, tpu):
+def assert_results_equal(host, device):
     h = [[vars(sd) for sd in fam] for fam in host.families]
-    t = [[vars(sd) for sd in fam] for fam in tpu.families]
+    t = [[vars(sd) for sd in fam] for fam in device.families]
     assert json.dumps(t, sort_keys=True) == json.dumps(h, sort_keys=True)
 
 
@@ -37,10 +37,10 @@ def test_window_engine_direct(tmp_path):
     g[12000:14000] = bytes(g[2000:4000])     # right arm inside window
     g[30000:32000] = bytes(g[5000:7000])     # right arm outside window
     g[19000:21000] = bytes(g[8000:10000])    # right arm straddles edge
-    host, tpu = run_both(tmp_path, bytes(g),
-                         dict(trim=(10000, 20000),
+    host, device = run_both(tmp_path, bytes(g),
+                            dict(trim=(10000, 20000),
                               min_duplication_length=800))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert host.families, "expected in-window duplications"
 
 
@@ -48,11 +48,11 @@ def test_window_engine_rc(tmp_path):
     rng = np.random.default_rng(11)
     g = bytearray(random_dna(rng, 30000, b"ACGT"))
     g[15000:17000] = revcomp(bytes(g[3000:5000]))
-    host, tpu = run_both(
+    host, device = run_both(
         tmp_path, bytes(g),
         dict(trim=(12000, 26000), reverse=True, complement=True,
              min_duplication_length=800))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -65,10 +65,10 @@ def test_window_engine_multi_chunk(tmp_path):
     g[6000:7500] = bytes(g[1000:2500])
     g[16000:22000] = b"N" * 6000
     g[30000:31500] = bytes(g[25000:26500])
-    host, tpu = run_both(tmp_path, bytes(g),
-                         dict(trim=(0, 35000),
+    host, device = run_both(tmp_path, bytes(g),
+                            dict(trim=(0, 35000),
                               min_duplication_length=700))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert sum(len(f) for f in host.families) >= 2
 
 
@@ -97,8 +97,8 @@ def test_window_engine_fuzz(tmp_path, trial):
         if reverse:
             seg = revcomp(seg)
         g[dst:dst + L] = seg
-    host, tpu = run_both(tmp_path, bytes(g), kw)
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, bytes(g), kw)
+    assert_results_equal(host, device)
 
 
 @pytest.mark.soak
@@ -113,11 +113,11 @@ def test_window_engine_repeat_heavy(tmp_path):
         p = 200 + i * 700
         g[p:p + 250] = alu
     g[n - 2500:n - 500] = bytes(g[400:2400])
-    host, tpu = run_both(
+    host, device = run_both(
         tmp_path, bytes(g),
         dict(trim=(0, 22000), max_cardinality=15,
              min_duplication_length=500))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
 
 
 @pytest.mark.soak
@@ -126,13 +126,13 @@ def test_window_engine_tiny_window(tmp_path):
     finds nothing or short right arms, identically to the host)."""
     rng = np.random.default_rng(14)
     text = plant_duplication(rng, 16000, 1500, 2000, 9000)
-    host, tpu = run_both(tmp_path, text,
-                         dict(trim=(100, 700)))
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, text,
+                            dict(trim=(100, 700)))
+    assert_results_equal(host, device)
 
 
 def test_shards_tpu_engine_byte_equal(tmp_path):
-    """--shards with engine=tpu: byte-equal JSON vs engine=host."""
+    """--shards with engine=device: byte-equal JSON vs engine=host."""
     import io
 
     from asgart_tpu.exporters import JSONExporter
@@ -146,11 +146,11 @@ def test_shards_tpu_engine_byte_equal(tmp_path):
     settings = RunSettings(min_duplication_length=800)
     host = search_duplications([str(fa)], settings, engine="host",
                                shards=2)
-    tpu = search_duplications(
+    device = search_duplications(
         [str(fa)], dataclasses.replace(settings), engine="tpu", shards=2)
     bh, bt = io.StringIO(), io.StringIO()
     JSONExporter().save(host, bh)
-    JSONExporter().save(tpu, bt)
+    JSONExporter().save(device, bt)
     assert bt.getvalue() == bh.getvalue()
     assert host.families
 
@@ -223,10 +223,10 @@ def test_big_window_direct(tmp_path, monkeypatch):
     g[12000:14000] = bytes(g[2000:4000])
     g[30000:32000] = bytes(g[5000:7000])
     g[19000:21000] = bytes(g[8000:10000])
-    host, tpu = run_both(tmp_path, bytes(g),
-                         dict(trim=(10000, 20000),
+    host, device = run_both(tmp_path, bytes(g),
+                            dict(trim=(10000, 20000),
                               min_duplication_length=800))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -235,11 +235,11 @@ def test_big_window_rc(tmp_path, monkeypatch):
     rng = np.random.default_rng(42)
     g = bytearray(random_dna(rng, 30000, b"ACGT"))
     g[15000:17000] = revcomp(bytes(g[3000:5000]))
-    host, tpu = run_both(
+    host, device = run_both(
         tmp_path, bytes(g),
         dict(trim=(12000, 26000), reverse=True, complement=True,
              min_duplication_length=800))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -254,10 +254,10 @@ def test_big_window_multi_chunk_and_repeats(tmp_path, monkeypatch):
     g[6000:7500] = bytes(g[1000:2500])
     g[16000:22000] = b"N" * 6000
     g[30000:31500] = bytes(g[25000:26500])
-    host, tpu = run_both(tmp_path, bytes(g),
-                         dict(trim=(0, 35000), max_cardinality=15,
+    host, device = run_both(tmp_path, bytes(g),
+                            dict(trim=(0, 35000), max_cardinality=15,
                               min_duplication_length=700))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert sum(len(f) for f in host.families) >= 2
 
 
@@ -287,13 +287,13 @@ def test_big_window_fuzz(tmp_path, trial, monkeypatch):
         if reverse:
             seg = revcomp(seg)
         g[dst:dst + L] = seg
-    host, tpu = run_both(tmp_path, bytes(g), kw)
-    assert_results_equal(host, tpu)
+    host, device = run_both(tmp_path, bytes(g), kw)
+    assert_results_equal(host, device)
 
 
 @pytest.mark.soak
 def test_big_window_shards_byte_equal(tmp_path, monkeypatch):
-    """--shards engine=tpu in forced big mode (the whole-human-genome
+    """--shards engine=device in forced big mode (the whole-human-genome
     shape: every window a BigWindowEngine): byte-equal JSON vs host."""
     import io
 
@@ -310,11 +310,11 @@ def test_big_window_shards_byte_equal(tmp_path, monkeypatch):
                            complement=True)
     host = search_duplications([str(fa)], settings, engine="host",
                                shards=3)
-    tpu = search_duplications(
+    device = search_duplications(
         [str(fa)], dataclasses.replace(settings), engine="tpu", shards=3)
     bh, bt = io.StringIO(), io.StringIO()
     JSONExporter().save(host, bh)
-    JSONExporter().save(tpu, bt)
+    JSONExporter().save(device, bt)
     assert bt.getvalue() == bh.getvalue()
     assert host.families
 
@@ -352,11 +352,11 @@ def test_one_window_many_chunks_batch(tmp_path, monkeypatch):
         # force the one-window strategy (table engine would fit)
         monkeypatch.setenv("ASGART_HBM_BYTES",
                            str(120002 * 50))
-        tpu = search_duplications([str(fa)], settings, engine="tpu")
+        device = search_duplications([str(fa)], settings, engine="tpu")
         monkeypatch.delenv("ASGART_HBM_BYTES")
         bh, bt = io.StringIO(), io.StringIO()
         JSONExporter().save(host, bh)
-        JSONExporter().save(tpu, bt)
+        JSONExporter().save(device, bt)
         assert bt.getvalue() == bh.getvalue(), kw
     assert host.families
 
@@ -375,11 +375,11 @@ def test_big_window_chunk_heavy_batched(tmp_path, monkeypatch):
     g[125000:126200] = bytes(g[90000:91200])
     for p in (12000, 50000, 70000, 110000, 118000):
         g[p:p + 6000] = b"N" * 6000
-    host, tpu = run_both(
+    host, device = run_both(
         tmp_path, bytes(g),
         dict(reverse=True, complement=True, trim=(0, 128000),
              min_duplication_length=700))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -410,10 +410,10 @@ def test_window_engine_sliced_dispatch(tmp_path, monkeypatch):
     rng = np.random.default_rng(21)
     g = _satellite_genome(rng)
     de._CAP_CACHE.clear()
-    host, tpu = run_both(tmp_path, g,
-                         dict(trim=(10000, 35000),
+    host, device = run_both(tmp_path, g,
+                            dict(trim=(10000, 35000),
                               min_duplication_length=500))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert any(v == "sliced" for v in de._CAP_CACHE.values()), \
         "expected the sliced window dispatch to trigger"
 
@@ -433,11 +433,11 @@ def test_big_window_sliced_dispatch(tmp_path, monkeypatch):
     rng = np.random.default_rng(22)
     g = _satellite_genome(rng)
     de._CAP_CACHE.clear()
-    host, tpu = run_both(tmp_path, g,
-                         dict(trim=(10000, 35000), reverse=True,
+    host, device = run_both(tmp_path, g,
+                            dict(trim=(10000, 35000), reverse=True,
                               complement=True,
                               min_duplication_length=500))
-    assert_results_equal(host, tpu)
+    assert_results_equal(host, device)
     assert any(v == "sliced" for v in de._CAP_CACHE.values())
 
 

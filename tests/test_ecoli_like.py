@@ -108,6 +108,6 @@ def test_ecoli_like_engines_agree(genome_file):
     from asgart_tpu.structs import RunSettings
 
     host = search_duplications([genome_file], RunSettings())
-    tpu = search_duplications([genome_file], RunSettings(), engine="tpu")
-    assert ([[vars(s) for s in f] for f in tpu.families] ==
+    device = search_duplications([genome_file], RunSettings(), engine="tpu")
+    assert ([[vars(s) for s in f] for f in device.families] ==
             [[vars(s) for s in f] for f in host.families])

@@ -128,9 +128,12 @@ def test_fused_tied_overflow_falls_back(tmp_path, monkeypatch):
             raise
 
     monkeypatch.setattr(di.FusedIndex, "build", classmethod(spy))
-    fused = search_duplications([str(fa)], s, engine="tpu")
+    prof: dict = {}
+    fused = search_duplications([str(fa)], s, engine="tpu", profile=prof)
     assert called.get("bailed")
     assert _json(host) == _json(fused)
+    # the bail-out is visible in the run profile
+    assert prof["device_engine"] == "FusedEngine->DeviceEngine"
 
 
 def test_fused_probe_size_boundaries(tmp_path, monkeypatch):
@@ -247,6 +250,6 @@ def test_fused_checkpoint_uses_classic(tmp_path, monkeypatch):
     host = search_duplications([str(fa)], s, engine="host")
     monkeypatch.setenv("ASGART_FUSED", "1")
     ck = tmp_path / "ck.jsonl"
-    tpu = search_duplications([str(fa)], s, engine="tpu",
-                              checkpoint=str(ck))
-    assert _json(host) == _json(tpu)
+    device = search_duplications([str(fa)], s, engine="tpu",
+                                 checkpoint=str(ck))
+    assert _json(host) == _json(device)

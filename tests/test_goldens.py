@@ -61,7 +61,7 @@ def test_golden_rc_with_score():
 
 
 def test_golden_engines_agree():
-    """The TPU engine must reproduce the same bytes (CPU backend here)."""
+    """The device engine must reproduce the same bytes (CPU backend here)."""
     result = search_duplications(
         [GENOME], RunSettings(reverse=True, complement=True), engine="tpu")
     result.strand.name = "tests/goldens/golden_genome.fa"

@@ -26,9 +26,9 @@ def run_shards(tmp_path, body_frags, settings_kw, shards):
     write_fasta(fa, body_frags)
     host = search_duplications([str(fa)], RunSettings(**settings_kw),
                                engine="host", shards=shards)
-    tpu = search_duplications([str(fa)], RunSettings(**settings_kw),
-                              engine="tpu", shards=shards)
-    return host, tpu
+    device = search_duplications([str(fa)], RunSettings(**settings_kw),
+                                 engine="tpu", shards=shards)
+    return host, device
 
 
 def test_mesh_engine_is_used(tmp_path, monkeypatch):
@@ -69,9 +69,9 @@ def test_mesh_sharded_byte_equal(tmp_path, shards):
     g[23000:25500] = bytes(g[1000:3500])
     g[11000:13000] = bytes(g[30000:32000])
     g[5000:7000] = bytes(g[40000:42000])
-    host, tpu = run_shards(tmp_path, [("chr1", bytes(g))],
-                           dict(min_duplication_length=800), shards)
-    assert json_of(tpu) == json_of(host)
+    host, device = run_shards(tmp_path, [("chr1", bytes(g))],
+                              dict(min_duplication_length=800), shards)
+    assert json_of(device) == json_of(host)
     assert host.families
 
 
@@ -84,11 +84,11 @@ def test_mesh_sharded_rc_multi_fragment(tmp_path):
     f2[8000:10000] = revcomp(bytes(f1[4000:6000]))
     f1[14000:20000] = b"N" * 6000
     f1[25000:26500] = revcomp(bytes(f1[1000:2500]))
-    host, tpu = run_shards(
+    host, device = run_shards(
         tmp_path, [("chr1", bytes(f1)), ("chr2", bytes(f2))],
         dict(reverse=True, complement=True, min_duplication_length=800),
         4)
-    assert json_of(tpu) == json_of(host)
+    assert json_of(device) == json_of(host)
     assert host.families
 
 
@@ -101,9 +101,9 @@ def test_mesh_sharded_uneven_last_window(tmp_path):
     g = bytearray(random_dna(rng, n, b"ACGT"))
     g[17500:18800] = bytes(g[600:1900])   # right arm in the short window
     g[9000:10200] = bytes(g[3000:4200])
-    host, tpu = run_shards(tmp_path, [("chr1", bytes(g))],
-                           dict(min_duplication_length=600), 8)
-    assert json_of(tpu) == json_of(host)
+    host, device = run_shards(tmp_path, [("chr1", bytes(g))],
+                              dict(min_duplication_length=600), 8)
+    assert json_of(device) == json_of(host)
     assert host.families
 
 
@@ -120,10 +120,10 @@ def test_mesh_sharded_repeat_heavy(tmp_path):
         p = 200 + i * 850
         g[p:p + 240] = alu
     g[n - 2600:n - 600] = bytes(g[300:2300])
-    host, tpu = run_shards(
+    host, device = run_shards(
         tmp_path, [("chr1", bytes(g))],
         dict(max_cardinality=12, min_duplication_length=500), 4)
-    assert json_of(tpu) == json_of(host)
+    assert json_of(device) == json_of(host)
 
 
 def test_indivisible_device_count_falls_back(tmp_path):
@@ -132,9 +132,9 @@ def test_indivisible_device_count_falls_back(tmp_path):
     rng = np.random.default_rng(25)
     g = bytearray(random_dna(rng, 21000, b"ACGT"))
     g[15000:16500] = bytes(g[2000:3500])
-    host, tpu = run_shards(tmp_path, [("chr1", bytes(g))],
-                           dict(min_duplication_length=800), 3)
-    assert json_of(tpu) == json_of(host)
+    host, device = run_shards(tmp_path, [("chr1", bytes(g))],
+                              dict(min_duplication_length=800), 3)
+    assert json_of(device) == json_of(host)
     assert host.families
 
 
@@ -154,8 +154,8 @@ def test_mesh_batched_stage1_many_chunks(tmp_path):
     for p in (12000, 50000, 75000, 110000, 128000):
         g[p:p + 6000] = b"N" * 6000
     for kw in ({}, dict(reverse=True, complement=True)):
-        host, tpu = run_shards(
+        host, device = run_shards(
             tmp_path, [("chr1", bytes(g))],
             dict(min_duplication_length=700, **kw), 2)
-        assert json_of(tpu) == json_of(host), kw
+        assert json_of(device) == json_of(host), kw
     assert host.families

@@ -108,6 +108,59 @@ def test_window_argv_is_a_plain_cli_command(tmp_path):
     assert part.settings.trim == (0, 10000)
 
 
+def test_device_workers_one_per_card(tmp_path, monkeypatch):
+    """Local device workers: at most one per visible GPU at a time, each
+    given its own card through CUDA_VISIBLE_DEVICES."""
+    import asgart_tpu.multihost as mh
+
+    state = {"running": 0, "peak": 0, "live": set()}
+    seen = []
+
+    class FakeProc:
+        def __init__(self, argv, env, stdout, stderr):
+            card = env["CUDA_VISIBLE_DEVICES"]
+            assert card not in state["live"], "two workers on one card"
+            state["live"].add(card)
+            state["running"] += 1
+            state["peak"] = max(state["peak"], state["running"])
+            seen.append(card)
+            self.card, self.polls, self.returncode = card, 0, None
+            self.stderr = io.BytesIO()
+
+        def poll(self):
+            self.polls += 1
+            if self.returncode is None and self.polls > 2:
+                self.returncode = 0
+                state["running"] -= 1
+                state["live"].discard(self.card)
+            return self.returncode
+
+        def wait(self):
+            while self.poll() is None:
+                pass
+
+        def kill(self):
+            pass
+
+    monkeypatch.setattr(mh.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(mh, "merge_partials", lambda parts, s: parts)
+    rng = np.random.default_rng(93)
+    fa = tmp_path / "g.fa"
+    write_fasta(fa, [("chr1", _genome(rng, 20000))])
+    parts = search_duplications_multihost(
+        [str(fa)], RunSettings(), shards=5, hosts=4, engine="tpu",
+        env={"JAX_PLATFORMS": "cuda", "CUDA_VISIBLE_DEVICES": "3,5"})
+    assert len(parts) == 5 and len(seen) == 5
+    assert state["peak"] == 2          # capped at the card count
+    assert set(seen) == {"3", "5"}
+
+    # the host engine (or the CPU platform) takes no card
+    assert mh.worker_cards("host", {}) is None
+    assert mh.worker_cards("tpu", {"JAX_PLATFORMS": "cpu"}) is None
+    assert mh.worker_cards("tpu", {"CUDA_VISIBLE_DEVICES": "0,1"}) \
+        == ["0", "1"]
+
+
 def test_two_process_jax_distributed():
     """Multi-controller axis: two `jax.distributed` CPU processes, one
     global mesh spanning both, the rank-sharded window's psum

@@ -13,9 +13,9 @@ from asgart_tpu.structs import RunSettings
 from tests.util import plant_duplication, random_dna, revcomp, write_fasta
 
 
-def assert_results_equal(host, tpu):
+def assert_results_equal(host, device):
     h = [[vars(sd) for sd in fam] for fam in host.families]
-    t = [[vars(sd) for sd in fam] for fam in tpu.families]
+    t = [[vars(sd) for sd in fam] for fam in device.families]
     assert json.dumps(t, sort_keys=True) == json.dumps(h, sort_keys=True)
 
 
@@ -54,9 +54,9 @@ def _trim_both(tmp_path, body, kw, trim, monkeypatch, host_build=None):
     if host_build is not None:
         monkeypatch.setenv("ASGART_RSH_HOST_BUILD",
                            "1" if host_build else "0")
-    tpu = search_duplications([str(fa)], s, engine="tpu")
+    device = search_duplications([str(fa)], s, engine="tpu")
     monkeypatch.delenv("ASGART_RANK_SHARDED")
-    return host, tpu
+    return host, device
 
 
 def test_rank_sharded_trim_direct(tmp_path, monkeypatch):
@@ -65,9 +65,9 @@ def test_rank_sharded_trim_direct(tmp_path, monkeypatch):
     assert len(jax.devices()) == 8
     rng = np.random.default_rng(70)
     body = plant_duplication(rng, 30000, 2000, 5000, 20000, noise=0.01)
-    host, tpu = _trim_both(tmp_path, body, {}, (2000, 26000),
-                           monkeypatch)
-    assert_results_equal(host, tpu)
+    host, device = _trim_both(tmp_path, body, {}, (2000, 26000),
+                              monkeypatch)
+    assert_results_equal(host, device)
     assert host.families, "nothing found"
 
 
@@ -75,10 +75,10 @@ def test_rank_sharded_trim_rc(tmp_path, monkeypatch):
     rng = np.random.default_rng(71)
     body = plant_duplication(rng, 24000, 1500, 3000, 15000,
                              transform=revcomp)
-    host, tpu = _trim_both(tmp_path, body,
-                           dict(reverse=True, complement=True),
-                           (1000, 20000), monkeypatch)
-    assert_results_equal(host, tpu)
+    host, device = _trim_both(tmp_path, body,
+                              dict(reverse=True, complement=True),
+                              (1000, 20000), monkeypatch)
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -88,9 +88,9 @@ def test_rank_sharded_host_built_window(tmp_path, monkeypatch):
     same sharded serving stages."""
     rng = np.random.default_rng(72)
     body = plant_duplication(rng, 20000, 1500, 2500, 12000)
-    host, tpu = _trim_both(tmp_path, body, {}, (500, 18000),
-                           monkeypatch, host_build=True)
-    assert_results_equal(host, tpu)
+    host, device = _trim_both(tmp_path, body, {}, (500, 18000),
+                              monkeypatch, host_build=True)
+    assert_results_equal(host, device)
     assert host.families
 
 
@@ -111,8 +111,8 @@ def test_rank_sharded_fuzz(tmp_path, monkeypatch):
             g[dst:dst + L] = seg
         a = int(rng.integers(0, n // 4))
         b = int(rng.integers(3 * n // 4, n - 1))
-        host, tpu = _trim_both(
+        host, device = _trim_both(
             tmp_path, bytes(g),
             dict(reverse=reverse, complement=reverse,
                  min_duplication_length=300), (a, b), monkeypatch)
-        assert_results_equal(host, tpu)
+        assert_results_equal(host, device)

@@ -78,11 +78,11 @@ def test_tpu_engine_end_to_end(tmp_path):
     p = tmp_path / "g.fa"
     write_fasta(p, [("chr", g)])
     host = search_duplications([str(p)], RunSettings())
-    tpu = search_duplications([str(p)], RunSettings(), engine="tpu")
+    device = search_duplications([str(p)], RunSettings(), engine="tpu")
     import io
     from asgart_tpu.exporters import JSONExporter
     b1, b2 = io.StringIO(), io.StringIO()
     JSONExporter().save(host, b1)
-    JSONExporter().save(tpu, b2)
+    JSONExporter().save(device, b2)
     assert b1.getvalue() == b2.getvalue()
     assert host.families
